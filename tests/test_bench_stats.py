@@ -59,7 +59,7 @@ def test_all_broken_falls_back_gracefully():
 
 
 def test_uncorroborated_fast_min_discarded_c0_pattern():
-    """The r04 c0 failure mode (VERDICT item 1): a min-of-4 fit 40% below ALL
+    """The c0 failure mode: a min-of-4 fit 40% below ALL
     THREE siblings (0.025 vs 0.040/0.040/0.043 ms) must be discarded — the
     old 0.3x-median rule passed it and published 44.7e9 REs/s."""
     bench = _load_bench()
@@ -97,7 +97,7 @@ def test_escalation_archives_and_advances_tiers():
 
 
 def test_chained_slope_stats_policy_matches():
-    from srsran_ce_tpu.utils import profiling
+    from srsran_ce.utils import profiling
 
     # drive the shared aggregation through a fake fast step on CPU: k=3
     # estimates of a trivially cheap op must produce a finite positive slope

@@ -9,8 +9,8 @@ import zlib
 import numpy as np
 import pytest
 
-from srsran_ce_tpu.models import estimator
-from srsran_ce_tpu.utils import oracle, synthetic
+from srsran_ce.models import estimator
+from srsran_ce.utils import oracle, synthetic
 
 
 CASES = [

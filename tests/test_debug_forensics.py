@@ -4,8 +4,8 @@ must be diagnosed as "wrong by a global complex gain", and a healthy golden as
 simply correct."""
 import numpy as np
 
-from srsran_ce_tpu.utils import vectors
-from srsran_ce_tpu.validation import conformance, synth_vectors
+from srsran_ce.utils import vectors
+from srsran_ce.validation import conformance, synth_vectors
 
 
 def _suite(tmp_path):

@@ -3,7 +3,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from srsran_ce_tpu.ops import demap
+from srsran_ce.ops import demap
 
 
 @pytest.mark.parametrize("mod", demap.MODULATIONS)
@@ -97,7 +97,7 @@ def test_end_to_end_bits_roundtrip(mod, snr_db):
 def test_pusch_scrambling_roundtrip_and_descramble():
     """TS 38.211 §6.3.1.1: scrambling is an involution; descrambling soft bits
     (sign flips where c=1) recovers the original bits, int8 and float alike."""
-    from srsran_ce_tpu.ops import sequences
+    from srsran_ce.ops import sequences
 
     rng = np.random.default_rng(17)
     c_init = sequences.pusch_scrambling_c_init(rnti=0x4601, n_id=17)

@@ -6,12 +6,13 @@ per-DM-RS-symbol estimate grid of the time-interp path, learning both frequency
 smoothing and Doppler tracking; no reference counterpart.
 """
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
-from srsran_ce_tpu.config import EstimatorConfig
-from srsran_ce_tpu.models import denoiser, estimator, training
-from srsran_ce_tpu.utils import synthetic
+from srsran_ce.config import EstimatorConfig
+from srsran_ce.models import denoiser, estimator, training
+from srsran_ce.utils import synthetic
 
 
 def _cfg(base, **over):
@@ -68,7 +69,7 @@ def test_train2d_beats_raw_ls_under_doppler():
 def test_learned2d_beats_filter_under_doppler():
     """End-to-end: a briefly-trained 2-D denoiser must beat the reference RC-filter
     chain (both with time interpolation) on channel NMSE at low SNR with Doppler."""
-    from srsran_ce_tpu.validation import quality
+    from srsran_ce.validation import quality
 
     state, _ = training.train2d(
         n_steps=250, batch=128, n_re=32, n_dsym=4, seed=0, lr=2e-3, log_every=10**9
@@ -85,8 +86,8 @@ def test_learned2d_dp_sharded():
     """The SP assertion points learned2d problems at the DP path — prove it works:
     build_dp_batched passes the params pytree as a trailing replicated argument."""
     import jax
-    from srsran_ce_tpu.parallel import mesh as mesh_lib
-    from srsran_ce_tpu.parallel.data_parallel import build_dp_batched
+    from srsran_ce.parallel import mesh as mesh_lib
+    from srsran_ce.parallel.data_parallel import build_dp_batched
 
     case = synthetic.make_case(seed=13, n_prbs=16, n_layers=1, snr_db=15.0, doppler_hz=200.0)
     cfg = _cfg(case.config, smoothing="learned2d", time_interp="linear")
@@ -112,8 +113,8 @@ def test_learned2d_dp_sharded():
 def test_learned2d_sp_matches_unsharded():
     """Subcarrier-sharded learned2d (frequency-halo layer-wise conv) must equal the
     unsharded path bit-tight, with non-trivial (briefly trained) weights."""
-    from srsran_ce_tpu.parallel import mesh as mesh_lib
-    from srsran_ce_tpu.parallel.subcarrier import build_sp
+    from srsran_ce.parallel import mesh as mesh_lib
+    from srsran_ce.parallel.subcarrier import build_sp
 
     state, _ = training.train2d(n_steps=25, batch=64, n_re=32, n_dsym=4, seed=2, log_every=0)
     case = synthetic.make_case(
@@ -142,3 +143,20 @@ def test_learned2d_sp_matches_unsharded():
         atol=1e-12,
     )
     np.testing.assert_allclose(float(out_sp.noise_est), float(out_1.noise_est), rtol=1e-8)
+
+
+def test_shipped_2d_checkpoint_loads_and_round_trips(tmp_path):
+    """The shipped learned2d checkpoint (.npz) loads into the 2-D model and
+    survives a save/load round trip bit for bit."""
+    from pathlib import Path
+
+    ckpt = Path(__file__).resolve().parents[1] / "srsran_ce" / "artifacts" / "denoiser2d_ckpt.npz"
+    state = training.load_checkpoint_2d(str(ckpt))
+    assert state.step > 0
+    path = tmp_path / "again.npz"
+    training.save_checkpoint(path, state)
+    back = training.load_checkpoint_2d(path)
+    assert back.step == state.step
+    tree = lambda s: (s.params, s.opt_state)
+    for a, b in zip(jax.tree_util.tree_leaves(tree(state)), jax.tree_util.tree_leaves(tree(back))):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

@@ -13,9 +13,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from srsran_ce_tpu.models import estimator
-from srsran_ce_tpu.ops import equalize
-from srsran_ce_tpu.utils import synthetic
+from srsran_ce.models import estimator
+from srsran_ce.ops import equalize
+from srsran_ce.utils import synthetic
 
 
 def _numpy_mmse(y, h, noise_var, beta):
@@ -149,7 +149,7 @@ def test_hermitian_inverse_lead_closed_forms(nL):
     """Closed-form leading-axis inverses (adjugate nL<=3, 2x2-block Schur nL=4,
     linalg fallback above) vs numpy.linalg.inv on random regularized Gram
     matrices — the exact structure the equalizer feeds them."""
-    from srsran_ce_tpu.ops.equalize import _hermitian_inverse_lead
+    from srsran_ce.ops.equalize import _hermitian_inverse_lead
 
     rng = np.random.default_rng(5)
     n_rx, n_b = max(nL, 2), 37

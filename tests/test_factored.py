@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from srsran_ce_tpu.models import estimator
-from srsran_ce_tpu.utils import synthetic
+from srsran_ce.models import estimator
+from srsran_ce.utils import synthetic
 
 
 def _run(case, n_layers, **build_kw):

@@ -6,14 +6,14 @@ recover the exact payload at high SNR. Covers corners the targeted tests
 don't: frequency-hopped allocations, 1..3 RX ports, BPSK..1024QAM, CRC kinds,
 layered schedule, early termination. CE_FUZZ_CODED_N widens the sweep.
 
-The trial logic lives in srsran_ce_tpu/validation/deepfuzz.py (shared with
+The trial logic lives in srsran_ce/validation/deepfuzz.py (shared with
 `cli selftest --deep`, which records the committed DEEPFUZZ_REPORT.json).
 """
 import os
 
 import pytest
 
-from srsran_ce_tpu.validation import deepfuzz
+from srsran_ce.validation import deepfuzz
 
 N = int(os.environ.get("CE_FUZZ_CODED_N", "6"))
 

@@ -7,7 +7,7 @@ at random and asserts the production path matches the float64 numpy oracle on
 every draw (incl. scalar measurements and the factored-output reconstruction).
 Seeded and deterministic; widen with CE_FUZZ_N=<draws>.
 
-The draw/check logic lives in srsran_ce_tpu/validation/deepfuzz.py — the same
+The draw/check logic lives in srsran_ce/validation/deepfuzz.py — the same
 code `cli selftest --deep` runs at depth to produce the committed
 DEEPFUZZ_REPORT.json, so the recorded evidence and the CI gate cannot drift
 apart.
@@ -16,7 +16,7 @@ import os
 
 import pytest
 
-from srsran_ce_tpu.validation import deepfuzz
+from srsran_ce.validation import deepfuzz
 
 N_DRAWS = int(os.environ.get("CE_FUZZ_N", "12"))
 

@@ -10,12 +10,12 @@ holes, string paths with digits, erratic whitespace, len-14 vs len-n_alloc
 DMRS masks. generate_fuzz_header emits those quirks FROM INTENT, so this test
 checks recovery of the truth — not reproduction of the parser's own output.
 
-The sweep logic lives in srsran_ce_tpu/validation/deepfuzz.py (shared with
+The sweep logic lives in srsran_ce/validation/deepfuzz.py (shared with
 `cli selftest --deep`). CE_FUZZ_HEADER_N (default 120) controls the count.
 """
 import os
 
-from srsran_ce_tpu.validation import deepfuzz
+from srsran_ce.validation import deepfuzz
 
 N_CASES = int(os.environ.get("CE_FUZZ_HEADER_N", "120"))
 

@@ -1,4 +1,4 @@
-"""Randomized-geometry fuzz across the shard_map seams (VERDICT r05 item 5).
+"""Randomized-geometry fuzz across the shard_map seams.
 
 The fixed-geometry sharding examples (tests/test_sharding.py) pin the halo
 exchange / pad+mask / hopped routes at known shapes; this fuzzer samples the
@@ -8,7 +8,7 @@ joint receiver (with and without the fused demap), and the multi-slot tracker
 oracle (estimator) or the unsharded builder (receiver/tracked). Seeded and
 deterministic; widen with CE_FUZZ_SP_N=<draws>.
 
-The draw/check logic lives in srsran_ce_tpu/validation/deepfuzz.py — the same
+The draw/check logic lives in srsran_ce/validation/deepfuzz.py — the same
 code `cli selftest --deep` runs at depth (N>=30) to produce the committed
 DEEPFUZZ_REPORT.json `sp` section, so the recorded evidence and the CI gate
 cannot drift apart.
@@ -17,7 +17,7 @@ import os
 
 import pytest
 
-from srsran_ce_tpu.validation import deepfuzz
+from srsran_ce.validation import deepfuzz
 
 N_DRAWS = int(os.environ.get("CE_FUZZ_SP_N", "6"))
 

@@ -4,7 +4,7 @@ numpy reference schedule, AWGN error correction + coding gain, irregular
 import numpy as np
 import pytest
 
-from srsran_ce_tpu.ops import ldpc
+from srsran_ce.ops import ldpc
 
 
 def _awgn_llrs(rng, code, n_words, snr_db):
@@ -129,7 +129,7 @@ def test_coded_link_end_to_end():
     AWGN -> estimate -> joint MMSE -> fused int8 demap -> descramble ->
     min-sum decode. At 20 dB the raw channel still makes errors; the decoder
     must deliver an error-free payload with every parity check passing."""
-    from srsran_ce_tpu.validation import quality
+    from srsran_ce.validation import quality
 
     t = quality.coded_ber_sweep(snrs_db=(20.0,), n_cases=2, n_prbs=12)[20.0]
     assert t["uncoded_ber"] > 5e-3, t  # the code has real work to do
@@ -138,76 +138,11 @@ def test_coded_link_end_to_end():
     assert t["parity_ok_frac"] == 1.0, t
 
 
-def test_pallas_tier_bit_identical():
-    """The VMEM-resident pallas decoder (interpret mode on CPU) must be
-    BIT-identical to the XLA tier: same edge order, same summation
-    association, same argmin-first tie semantics in the two-min fold."""
-    for code in (
-        ldpc.array_code(3, 8, 13),
-        ldpc.QCLdpcCode(
-            base=((0, 2, -1, 1, -1, 0), (-1, 1, 0, -1, 3, 0), (2, -1, 1, 0, -1, -1)),
-            z=5,
-        ),
-    ):
-        rng = np.random.default_rng(11)
-        llr = rng.normal(0, 2.5, (6, code.n)).astype(np.float32)
-        a = ldpc.build_decoder(code, n_iters=7)(llr)
-        p = ldpc.build_decoder(code, n_iters=7, kernels="pallas")(llr)
-        assert np.array_equal(np.asarray(a.bits), np.asarray(p.bits))
-        assert np.array_equal(np.asarray(a.ok), np.asarray(p.ok))
-        np.testing.assert_array_equal(np.asarray(a.posterior), np.asarray(p.posterior))
-
-
-def test_pallas_tier_layout_selection_and_gate():
-    assert ldpc._pallas_layout(ldpc.array_code(6, 16, 61)) == (0, 128)
-    # too big for sublane-z (19 MB live at 128 lanes) -> lane-z with the
-    # largest fitting batch-sublane tile
-    z_axis, block_b = ldpc._pallas_layout(ldpc.array_code(6, 16, 389))
-    assert z_axis == 1 and block_b == 16
-    huge = ldpc.array_code(16, 64, 1021)  # ~37 MB even at the 8-row tile
-    assert ldpc._pallas_layout(huge) is None
-    with pytest.raises(ValueError):
-        ldpc.build_decoder(huge, n_iters=5, kernels="pallas")
-    # auto falls back to the XLA tier when no pallas layout fits
-    small = ldpc.array_code(2, 6, 11)
-    orig = ldpc._pallas_layout
-    ldpc._pallas_layout = lambda c: None
-    try:
-        ldpc.build_decoder.cache_clear()
-        dec = ldpc.build_decoder(small, n_iters=3, kernels="auto")
-        rng = np.random.default_rng(0)
-        dec(rng.normal(0, 1, (4, small.n)).astype(np.float32))  # runs, no raise
-    finally:
-        ldpc._pallas_layout = orig
-        ldpc.build_decoder.cache_clear()
-
-
-def test_pallas_lane_z_layout_bit_identical():
-    """The lane-z tile (z on lanes, batch on sublanes — the large-Z route)
-    must match the XLA tier bitwise too; force it by monkeypatching the
-    layout choice on a small code (interpret mode on CPU)."""
-    code = ldpc.array_code(3, 8, 13)
-    rng = np.random.default_rng(13)
-    llr = rng.normal(0, 2.5, (9, code.n)).astype(np.float32)  # 9 -> pads to 16
-    a = ldpc.build_decoder(code, n_iters=7)(llr)
-    orig = ldpc._pallas_layout
-    ldpc._pallas_layout = lambda c: (1, 8)
-    try:
-        ldpc.build_decoder.cache_clear()
-        p = ldpc.build_decoder(code, n_iters=7, kernels="pallas")(llr)
-    finally:
-        ldpc._pallas_layout = orig
-        ldpc.build_decoder.cache_clear()
-    assert np.array_equal(np.asarray(a.bits), np.asarray(p.bits))
-    assert np.array_equal(np.asarray(a.ok), np.asarray(p.ok))
-    np.testing.assert_array_equal(np.asarray(a.posterior), np.asarray(p.posterior))
-
-
 def test_dp_sharded_decode_matches_unsharded():
     """parallel.build_dp_decoder: codewords dp-shard with zero collectives;
     the sharded decode must equal the single-device decode bitwise."""
-    from srsran_ce_tpu.parallel import mesh as mesh_lib
-    from srsran_ce_tpu.parallel.data_parallel import build_dp_decoder
+    from srsran_ce.parallel import mesh as mesh_lib
+    from srsran_ce.parallel.data_parallel import build_dp_decoder
 
     mesh = mesh_lib.make_mesh((8,), ("dp",))
     code = ldpc.array_code(3, 8, 53)
@@ -244,9 +179,9 @@ def test_load_base_graph_json(tmp_path):
 def test_early_termination_serving_equivalence():
     """Two-phase serving decode (early_iters) must deliver the same payloads
     as the single full pass on a decodable link, and still rerun failures."""
-    from srsran_ce_tpu import serving, transport
-    from srsran_ce_tpu.ops import demap
-    from srsran_ce_tpu.utils import synthetic
+    from srsran_ce import serving, transport
+    from srsran_ce.ops import demap
+    from srsran_ce.utils import synthetic
 
     code = ldpc.array_code(8, 16, 61)
     plan = ldpc.make_ldpc_plan(code)
@@ -278,14 +213,14 @@ def test_early_termination_serving_equivalence():
 
 
 def test_layered_schedule_matches_reference_and_converges_faster():
-    """schedule='layered' (pallas tier, row-serial): bitwise vs its float64
-    numpy mirror, and strictly-no-worse convergence than flooding at equal
-    sweep counts (the classic layered property: later rows see fresher
-    beliefs, ~2x fewer sweeps for the same BER)."""
+    """schedule='layered' (plain-XLA row walk): vs its float64 numpy mirror,
+    and strictly-no-worse convergence than flooding at equal sweep counts
+    (the classic layered property: later rows see fresher beliefs, ~2x fewer
+    sweeps for the same BER)."""
     code = ldpc.array_code(3, 8, 13)
     rng = np.random.default_rng(21)
     llr = rng.normal(0, 2.5, (6, code.n)).astype(np.float32)
-    p = ldpc.build_decoder(code, n_iters=5, kernels="pallas", schedule="layered")(llr)
+    p = ldpc.build_decoder(code, n_iters=5, schedule="layered")(llr)
     rb, rok, rpost = ldpc.decode_reference(code, llr, n_iters=5, schedule="layered")
     assert np.array_equal(np.asarray(p.bits), rb)
     assert np.array_equal(np.asarray(p.ok), rok)
@@ -299,19 +234,16 @@ def test_layered_schedule_matches_reference_and_converges_faster():
     llr2 = (4 * snr * ((1 - 2.0 * c) + rng.normal(0, np.sqrt(0.5 / snr), c.shape))).astype(np.float32)
     ok_f = int(np.asarray(ldpc.build_decoder(code2, n_iters=3)(llr2).ok).sum())
     ok_l = int(np.asarray(
-        ldpc.build_decoder(code2, n_iters=3, kernels="pallas", schedule="layered")(llr2).ok
+        ldpc.build_decoder(code2, n_iters=3, schedule="layered")(llr2).ok
     ).sum())
     assert ok_l >= ok_f, (ok_l, ok_f)
     assert ok_l > 48, ok_l  # layered at 3 sweeps already converges most words
-    # layered on a too-large code without the pallas tier must raise
-    with pytest.raises(ValueError):
-        ldpc.build_decoder(ldpc.array_code(16, 64, 1021), n_iters=3, schedule="layered")
 
 
-def test_gather_tier_matches_unrolled():
-    """kernels='xla_gather' (O(1)-program gather formulation) must match the
-    unrolled tier: posterior to float tolerance (scatter-add association),
-    bits/ok exactly — on an irregular code so padded slots are exercised."""
+def test_flooding_irregular_code_matches_reference():
+    """The gather/scatter-add flooding decoder on an irregular code (padded
+    slots exercised): posterior to float tolerance (scatter-add
+    association), bits/ok exactly, and a clean decode roundtrip."""
     base = (
         (0, 2, -1, 1, -1, 0),
         (-1, 1, 0, -1, 3, 0),
@@ -320,32 +252,28 @@ def test_gather_tier_matches_unrolled():
     code = ldpc.QCLdpcCode(base=base, z=7)
     rng = np.random.default_rng(5)
     llr = rng.normal(0.0, 2.5, (6, code.n))
-    res_u = ldpc.build_decoder(code, n_iters=7)(llr)
-    res_g = ldpc.build_decoder(code, n_iters=7, kernels="xla_gather")(llr)
-    np.testing.assert_allclose(
-        np.asarray(res_g.posterior), np.asarray(res_u.posterior), rtol=1e-5, atol=1e-5
-    )
-    assert np.array_equal(np.asarray(res_g.bits), np.asarray(res_u.bits))
-    assert np.array_equal(np.asarray(res_g.ok), np.asarray(res_u.ok))
-    # and a clean decode roundtrip through the gather tier
+    res = ldpc.build_decoder(code, n_iters=7)(llr)
+    rb, rok, rpost = ldpc.decode_reference(code, llr, n_iters=7)
+    np.testing.assert_allclose(np.asarray(res.posterior), rpost, rtol=1e-5, atol=1e-5)
+    assert np.array_equal(np.asarray(res.bits), rb)
+    assert np.array_equal(np.asarray(res.ok), rok)
     plan = ldpc.make_ldpc_plan(code)
     u = rng.integers(0, 2, (4, plan.k), dtype=np.uint8)
     cw = ldpc.encode(code, u)
     llr2 = 8.0 * (1.0 - 2.0 * cw) + rng.normal(0, 0.6, cw.shape)
-    res = ldpc.build_decoder(code, n_iters=10, kernels="xla_gather")(llr2)
+    res = ldpc.build_decoder(code, n_iters=10, kernels="auto")(llr2)
     assert bool(np.asarray(res.ok).all())
     assert np.array_equal(np.asarray(res.info), u)
 
 
 def test_auto_tier_selects_gather_for_huge_codes():
-    """NR BG1 at Z=384 (edge*z over the unroll compile budget) must route to
-    the gather tier under kernels='auto' — and actually decode (1 sweep on a
-    codeword is enough to prove the formulation compiles and runs end to end
-    on CPU without the unrolled tiers' program blowup)."""
-    from srsran_ce_tpu.ops import nr_ldpc
+    """NR BG1 at Z=384 under kernels='auto' (flooding: the O(1)-program
+    gather formulation) must actually decode: a few sweeps on a codeword
+    prove it compiles and runs end to end on the CPU."""
+    from srsran_ce.ops import nr_ldpc
 
     code = nr_ldpc.nr_base_graph(1, 384)
-    assert ldpc._edge_z(code) > ldpc._UNROLL_EDGE_Z_BUDGET
+    assert ldpc.select_tier("auto", "flooding", "cpu") == "xla"
     rng = np.random.default_rng(11)
     plan = ldpc.make_ldpc_plan(code)
     u = rng.integers(0, 2, (2, plan.k), dtype=np.uint8)
@@ -355,177 +283,212 @@ def test_auto_tier_selects_gather_for_huge_codes():
     res = dec(llr.astype(np.float32))
     assert bool(np.asarray(res.ok).all())
     assert np.array_equal(np.asarray(res.info), u)
-    with pytest.raises(ValueError):
-        ldpc.build_decoder(code, n_iters=3, kernels="auto", schedule="layered")
-    # small codes keep the unrolled/pallas tiers under auto
-    small = ldpc.array_code(4, 11, 13)
-    assert ldpc._edge_z(small) <= ldpc._UNROLL_EDGE_Z_BUDGET
 
 
-def test_streamed_tier_matches_layered_reference():
-    """Row-streamed VMEM tier (kernels='pallas_stream'): O(degree) program via
-    scalar-prefetched wiring tables + dynamic pltpu.roll — the tier that makes
-    NR-BG1-Z=384-scale codes decodable at VMEM speed (the unrolled tiers blow
-    the compile budget, the gather tier measured 3 Mb/s). Must match the
-    layered float64 mirror: identical hard decisions/payload, posterior to
-    float tolerance (different FMA fusion; LLR magnitudes grow per sweep)."""
-    from srsran_ce_tpu.ops import nr_ldpc
 
-    code = nr_ldpc.nr_base_graph(2, 128)
+
+# ---------------------------------------------------------------------------
+# Layered decoding: the plain-XLA row walk and the Triton kernel (interpreted)
+# ---------------------------------------------------------------------------
+
+_IRREGULAR = ((0, 2, -1, 1, -1, 0), (-1, 1, 0, -1, 3, 0), (2, -1, 1, 0, -1, -1))
+
+
+def _layered_code(name):
+    from srsran_ce.ops import nr_ldpc
+
+    return {
+        "array": lambda: ldpc.array_code(3, 8, 13),
+        "irregular": lambda: ldpc.QCLdpcCode(base=_IRREGULAR, z=5),
+        "nr_bg2": lambda: nr_ldpc.nr_base_graph(2, 16),
+    }[name]()
+
+
+def _noisy_codewords(code, n_words, seed, snr_db=3.5):
     plan = ldpc.make_ldpc_plan(code)
-    rng = np.random.default_rng(3)
-    u = rng.integers(0, 2, (16, plan.k), dtype=np.uint8)
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, 2, (n_words, plan.k), dtype=np.uint8)
     cw = ldpc.encode(code, u)
-    snr = 10.0**0.35
-    llr = (
-        4 * snr * ((1 - 2.0 * cw) + rng.normal(0, np.sqrt(0.5 / snr), cw.shape))
-    ).astype(np.float32)
-    dec = ldpc.build_decoder(code, n_iters=8, kernels="pallas_stream", schedule="layered")
-    res = dec(llr)
-    bits_ref, ok_ref, post_ref = ldpc.decode_reference(
-        code, llr, n_iters=8, schedule="layered"
+    snr = 10.0 ** (snr_db / 10)
+    llr = 4 * snr * ((1 - 2.0 * cw) + rng.normal(0, np.sqrt(0.5 / snr), cw.shape))
+    return u, llr.astype(np.float32)
+
+
+def _batch_last(code, llr):
+    import jax.numpy as jnp
+
+    b = llr.shape[0]
+    return jnp.transpose(jnp.asarray(llr).reshape(b, code.n_var_blocks, code.z), (1, 2, 0))
+
+
+@pytest.mark.parametrize("c2v", [None, "bfloat16"])
+@pytest.mark.parametrize("group", [1, 2, 3])
+@pytest.mark.parametrize("name", ["array", "irregular", "nr_bg2"])
+def test_layered_xla_matches_reference(name, group, c2v):
+    """The plain-XLA layered walk follows decode_reference(schedule='layered')
+    for every row grouping (3 does not divide every row count: padded rows)
+    and message dtype: identical hard decisions and parity, posterior to
+    float32 rounding (bf16 messages are rounded identically on both sides)."""
+    code = _layered_code(name)
+    if name == "nr_bg2":  # near-codeword input: random LLRs leave posteriors
+        _, llr = _noisy_codewords(code, 6, seed=7)  # at 0 where f32/f64 split
+    else:  # random LLRs exercise unsatisfied checks on the small codes
+        llr = np.random.default_rng(7).normal(0.0, 2.5, (6, code.n)).astype(np.float32)
+    res = ldpc.build_decoder(
+        code, n_iters=5, schedule="layered", layered_group=group, stream_c2v_dtype=c2v
+    )(llr)
+    rb, rok, rpost = ldpc.decode_reference(
+        code, llr, n_iters=5, schedule="layered", layered_group=group, c2v_dtype=c2v
     )
-    assert np.array_equal(np.asarray(res.bits), bits_ref)
-    assert np.array_equal(np.asarray(res.ok), ok_ref)
-    assert np.array_equal(np.asarray(res.info), u)
-    scale = np.abs(post_ref).max()
-    assert np.abs(np.asarray(res.posterior, np.float64) - post_ref).max() / scale < 1e-4
+    assert np.array_equal(np.asarray(res.bits), rb)
+    assert np.array_equal(np.asarray(res.ok), rok)
+    scale = np.abs(rpost).max()
+    assert np.abs(np.asarray(res.posterior, np.float64) - rpost).max() / scale < 1e-5
 
 
-def test_streamed_tier_huge_code_end_to_end():
-    """BG1 Z=384 (n=26112, the largest NR code block) through the streamed
-    tier — payload-exact at moderate SNR. kernels='auto' + layered must route
-    here (the measured on-chip result: 257 Mb/s vs the gather tier's 3)."""
-    from srsran_ce_tpu.ops import nr_ldpc
+@pytest.mark.parametrize("c2v", [None, "bfloat16"])
+@pytest.mark.parametrize("group", [1, 3])
+@pytest.mark.parametrize("name", ["irregular", "nr_bg2"])
+def test_triton_kernel_interpreted_matches_xla_walk(name, group, c2v):
+    """The Triton layered kernel, run by the Pallas interpreter, gives the
+    plain-XLA walk's posterior bit for bit (same row order, tie rule,
+    message rounding and update association)."""
+    from srsran_ce.ops import ldpc_triton
+
+    code = _layered_code(name)
+    plan = ldpc.make_ldpc_plan(code)
+    _, llr = _noisy_codewords(code, 5, seed=13)
+    walk = ldpc.build_decoder(
+        code, n_iters=4, schedule="layered", layered_group=group, stream_c2v_dtype=c2v
+    )(llr)
+    post = ldpc_triton.layered_posterior(
+        _batch_last(code, llr), plan.slot_var, plan.slot_shift, plan.slot_valid, 4, 0.75,
+        group=group, c2v_dtype=c2v, interpret=True,
+    )
+    got = np.transpose(np.asarray(post), (2, 0, 1)).reshape(llr.shape)
+    np.testing.assert_array_equal(got, np.asarray(walk.posterior))
+
+
+def test_triton_kernel_pads_batch_to_whole_tiles(monkeypatch):
+    """A batch that is not a multiple of the codeword tile pads internally and
+    slices back: same posterior as the walk for every real codeword."""
+    from srsran_ce.ops import ldpc_triton
+
+    monkeypatch.setattr(ldpc_triton, "TARGET_PROGRAMS", 2)  # 9 words -> BT=4, 3 tiles
+    code = _layered_code("irregular")
+    plan = ldpc.make_ldpc_plan(code)
+    assert ldpc_triton.tiling(9, code.z, plan.max_degree)[0] == 4
+    _, llr = _noisy_codewords(code, 9, seed=17)
+    walk = ldpc.build_decoder(code, n_iters=3, schedule="layered")(llr)
+    post = ldpc_triton.layered_posterior(
+        _batch_last(code, llr), plan.slot_var, plan.slot_shift, plan.slot_valid, 3, 0.75,
+        interpret=True,
+    )
+    assert post.shape == (code.n_var_blocks, code.z, 9)
+    got = np.transpose(np.asarray(post), (2, 0, 1)).reshape(llr.shape)
+    np.testing.assert_array_equal(got, np.asarray(walk.posterior))
+
+
+@pytest.mark.parametrize(
+    "batch,z,d,want",
+    [
+        (32, 384, 19, (1, 64, 32)),  # few words: one per program, 64-lane chunks
+        (512, 61, 16, (4, 32, 16)),  # many words: 4 per program -> 128 programs
+        (128, 208, 10, (1, 128, 16)),
+        (4096, 5, 4, (16, 8, 4)),  # tile capped at MAX_BT; chunk capped at pow2(z)
+    ],
+)
+def test_triton_kernel_tiling(batch, z, d, want):
+    from srsran_ce.ops import ldpc_triton
+
+    bt, zb, dp = ldpc_triton.tiling(batch, z, d)
+    assert (bt, zb, dp) == want
+    assert dp >= d and zb * bt * dp <= ldpc_triton.BLOCK_ELEMS
+
+
+def test_triton_kernel_tables():
+    """Wiring tables: rows pad to whole groups, slots to the power-of-two DP;
+    pads are invalid and point at the dummy edge; real edges are numbered
+    row-major, matching the plan's edge list."""
+    from srsran_ce.ops import ldpc_triton
+
+    code = _layered_code("irregular")  # 3 rows of degree 4,4,4 (d = 4)
+    plan = ldpc.make_ldpc_plan(code)
+    tbl = ldpc_triton.kernel_tables(
+        plan.slot_var, plan.slot_shift, plan.slot_valid, code.z, group=2, dp=8
+    )
+    var_off, shift, eid, valid = tbl
+    assert tbl.shape == (4, 4, 8) and tbl.dtype == np.int32
+    n_edges = len(plan.edges)
+    assert not valid[3].any() and not valid[:, 4:].any()
+    assert (eid[valid == 0] == n_edges).all()
+    for e, (i, t, j, s) in enumerate(plan.edges):
+        assert valid[i, t] and eid[i, t] == e
+        assert var_off[i, t] == j * code.z and shift[i, t] == s % code.z
+
+
+def test_triton_kernel_refuses_cpu_without_interpret():
+    import jax
+
+    from srsran_ce.ops import ldpc_triton
+
+    assert jax.default_backend() == "cpu"
+    code = _layered_code("irregular")
+    plan = ldpc.make_ldpc_plan(code)
+    _, llr = _noisy_codewords(code, 2, seed=1)
+    with pytest.raises(ValueError, match="only for a GPU"):
+        ldpc_triton.layered_posterior(
+            _batch_last(code, llr), plan.slot_var, plan.slot_shift, plan.slot_valid, 2, 0.75
+        )
+    with pytest.raises(ValueError, match="only for a GPU"):
+        ldpc.build_decoder(code, n_iters=2, kernels="triton", schedule="layered")(llr)
+
+
+def test_triton_tier_is_layered_only():
+    with pytest.raises(ValueError, match="layered"):
+        ldpc.build_decoder(_layered_code("array"), n_iters=2, kernels="triton")
+
+
+@pytest.mark.parametrize(
+    "backend,layered,flooding",
+    [("cpu", "xla", "xla"), ("gpu", "triton", "xla"), ("rocm", None, None)],
+)
+def test_auto_choice_per_backend(monkeypatch, backend, layered, flooding):
+    """kernels='auto' picks by backend: the plain walk on the CPU, the
+    measured winner on a GPU, and refuses any other backend."""
+    import jax
+
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    code = _layered_code("array")
+    if layered is None:
+        with pytest.raises(ValueError, match="no LDPC decoder tier"):
+            ldpc.layered_tier(backend)
+        with pytest.raises(ValueError, match="no LDPC decoder tier"):
+            ldpc.build_decoder.__wrapped__(code, kernels="auto")
+        return
+    assert ldpc.layered_tier(backend) == layered
+    assert ldpc.select_tier("auto", "layered", backend) == layered
+    assert ldpc.select_tier("auto", "flooding", backend) == flooding
+
+
+def test_layered_huge_code_end_to_end():
+    """BG1 Z=384 (n=26112, the largest NR code block) through the plain-XLA
+    layered walk — payload-exact at moderate SNR with bf16 messages, the
+    configuration the decoded serving chain runs."""
+    from srsran_ce.ops import nr_ldpc
 
     code = nr_ldpc.nr_base_graph(1, 384)
-    assert ldpc._edge_z(code) > ldpc._UNROLL_EDGE_Z_BUDGET
-    assert ldpc._stream_supported(code)
-    plan = ldpc.make_ldpc_plan(code)
-    rng = np.random.default_rng(4)
-    u = rng.integers(0, 2, (8, plan.k), dtype=np.uint8)
-    cw = ldpc.encode(code, u)
-    snr = 10.0**0.35
-    llr = (
-        4 * snr * ((1 - 2.0 * cw) + rng.normal(0, np.sqrt(0.5 / snr), cw.shape))
-    ).astype(np.float32)
-    dec = ldpc.build_decoder(code, n_iters=8, kernels="pallas_stream", schedule="layered")
-    res = dec(llr)
+    u, llr = _noisy_codewords(code, 4, seed=4)
+    res = ldpc.build_decoder(
+        code, n_iters=8, schedule="layered", stream_c2v_dtype="bfloat16"
+    )(llr)
     assert bool(np.asarray(res.ok).all())
     assert np.array_equal(np.asarray(res.info), u)
 
 
-def test_streamed_tier_gates():
-    """Round 5 lifted the z%128 gate (in-kernel z padding): ANY NR lifting
-    size is streamable as long as the lane-z live set fits VMEM. Flooding on
-    the streamed tier still raises (it is a layered-walk kernel)."""
-    from srsran_ce_tpu.ops import nr_ldpc
-
-    code208 = nr_ldpc.nr_base_graph(2, 208)
-    assert ldpc._stream_supported(code208)  # padded to 256 lanes
-    assert ldpc._stream_supported(nr_ldpc.nr_base_graph(1, 240))  # the dead zone
-    with pytest.raises(ValueError, match="layered"):
-        ldpc.build_decoder(code208, n_iters=4, kernels="pallas_stream", schedule="flooding")
-    # a code whose live set cannot fit even the 8-row tile is still rejected
-    big = ldpc.QCLdpcCode(
-        base=tuple(tuple((i * j) % 1013 for j in range(24)) for i in range(12)),
-        z=1013,
-    )
-    assert not ldpc._stream_supported(big)
-    with pytest.raises(ValueError, match="VMEM"):
-        ldpc.build_decoder(big, n_iters=4, kernels="pallas_stream", schedule="layered")
-    # ...but the gate must model the dtype actually requested: bf16 messages
-    # halve the live set, and THIS code fits with them (code review r05: the
-    # gate used to model f32 regardless and falsely rejected bf16 builds)
-    assert ldpc._stream_supported(big, c2v_bf16=True)
-    assert ldpc.build_decoder(
-        big, n_iters=2, kernels="pallas_stream", schedule="layered",
-        stream_c2v_dtype="bfloat16",
-    ) is not None
-
-
-@pytest.mark.parametrize("group,c2v", [(1, None), (3, None), (1, "bfloat16")])
-def test_streamed_tier_padded_z(group, c2v):
-    """The in-kernel z padding (z=144 -> 256 lanes): the two-rotation +
-    lane-select true-Z roll must reproduce decode_reference(layered) exactly
-    in hard decisions for any group, including a group that does not divide
-    mb (row padding). bf16 c2v storage must still decode the payload (the
-    posterior is quantized, so only hard-decision/payload equality is
-    asserted for it)."""
-    from srsran_ce_tpu.ops import nr_ldpc
-
-    code = nr_ldpc.nr_base_graph(2, 144)
-    assert code.z % 128 != 0
-    plan = ldpc.make_ldpc_plan(code)
-    rng = np.random.default_rng(11)
-    u = rng.integers(0, 2, (8, plan.k), dtype=np.uint8)
-    cw = ldpc.encode(code, u)
-    snr = 10.0**0.35
-    llr = (
-        4 * snr * ((1 - 2.0 * cw) + rng.normal(0, np.sqrt(0.5 / snr), cw.shape))
-    ).astype(np.float32)
-    dec = ldpc.build_decoder(
-        code, n_iters=6, kernels="pallas_stream", schedule="layered",
-        layered_group=group, stream_c2v_dtype=c2v,
-    )
-    res = dec(llr)
-    assert bool(np.asarray(res.ok).all())
-    assert np.array_equal(np.asarray(res.info), u)
-    if c2v is None:
-        bits_ref, ok_ref, post_ref = ldpc.decode_reference(
-            code, llr, n_iters=6, schedule="layered", layered_group=group
-        )
-        assert np.array_equal(np.asarray(res.bits), bits_ref)
-        assert np.array_equal(np.asarray(res.ok), ok_ref)
-        scale = np.abs(post_ref).max()
-        assert (
-            np.abs(np.asarray(res.posterior, np.float64) - post_ref).max() / scale
-            < 1e-4
-        )
-
-
-def test_default_layered_group_rule():
-    """Task-8 rule: sublane-z codes keep G=1 (serial layered already ~2x);
-    lane-z codes pick G from the measured table (wide z_pad -> 8, one
-    register -> 2)."""
-    from srsran_ce_tpu.ops import nr_ldpc
-
-    assert ldpc.default_layered_group(ldpc.array_code(6, 16, 61)) == 1  # sublane-z
-    assert ldpc.default_layered_group(nr_ldpc.nr_base_graph(1, 52)) == 2
-    assert ldpc.default_layered_group(nr_ldpc.nr_base_graph(2, 208)) == 8
-    # streamed-tier codes cap G at the largest group whose snapshot
-    # transients still fit the lane-z VMEM budget
-    g384 = ldpc.default_layered_group(nr_ldpc.nr_base_graph(1, 384))
-    assert g384 >= 1 and ldpc._stream_supported(nr_ldpc.nr_base_graph(1, 384), g384)
-
-
-@pytest.mark.parametrize("group", [2, 4])
-def test_layered_group_matches_reference(group):
-    """Row-GROUP layering (layered_group=G): G rows' updates computed from one
-    posterior snapshot, then applied — interpolates between serial layered
-    (G=1) and flooding, keeping the narrow lane-z tile busy (measured
-    2.3-2.8x over flooding-16 at matched quality on the NR lane-z codes where
-    serial layered managed only 1.1-1.5x). Must match the float64 mirror with
-    the same group."""
-    from srsran_ce_tpu.ops import nr_ldpc
-
-    code = nr_ldpc.nr_base_graph(2, 16)
-    plan = ldpc.make_ldpc_plan(code)
-    rng = np.random.default_rng(5)
-    u = rng.integers(0, 2, (16, plan.k), dtype=np.uint8)
-    cw = ldpc.encode(code, u)
-    snr = 10.0**0.35
-    llr = (
-        4 * snr * ((1 - 2.0 * cw) + rng.normal(0, np.sqrt(0.5 / snr), cw.shape))
-    ).astype(np.float32)
-    dec = ldpc.build_decoder(
-        code, n_iters=8, kernels="pallas", schedule="layered", layered_group=group
-    )
-    res = dec(llr)
-    bits_ref, ok_ref, post_ref = ldpc.decode_reference(
-        code, llr, n_iters=8, schedule="layered", layered_group=group
-    )
-    assert np.array_equal(np.asarray(res.bits), bits_ref)
-    assert np.array_equal(np.asarray(res.info), u)
-    scale = np.abs(post_ref).max()
-    assert np.abs(np.asarray(res.posterior, np.float64) - post_ref).max() / scale < 1e-4
+@pytest.mark.parametrize("kernels", ["xla", "triton"])
+def test_explicit_tier_passes_through(kernels):
+    """An explicitly named tier is used as named, on any backend."""
+    for backend in ("cpu", "gpu"):
+        for schedule in ("flooding", "layered"):
+            assert ldpc.select_tier(kernels, schedule, backend) == kernels

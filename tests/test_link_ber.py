@@ -6,8 +6,8 @@ perfect-CSI MMSE bound. The reference has no link-level evaluation at all
 """
 import numpy as np
 
-from srsran_ce_tpu.utils import synthetic
-from srsran_ce_tpu.validation import quality
+from srsran_ce.utils import synthetic
+from srsran_ce.validation import quality
 
 
 def test_mimo_case_construction():
@@ -35,7 +35,7 @@ def test_mimo_case_construction():
     assert not case.data_mask[:, dmrs_syms].any()
     assert case.data_mask.sum() > 0
     # scrambling: bits XOR c modulate to the transmitted payload
-    from srsran_ce_tpu.ops import demap
+    from srsran_ce.ops import demap
 
     tx = demap.modulate(case.bits ^ case.scramble_c, "qpsk")[..., 0]
     np.testing.assert_allclose(tx, case.payload)

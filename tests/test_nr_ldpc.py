@@ -10,7 +10,7 @@ stand-ins (official Tables 5.3.2-2/-3 drop in via nr_base_graph(shifts=...)).
 import numpy as np
 import pytest
 
-from srsran_ce_tpu.ops import ldpc, nr_ldpc as nr
+from srsran_ce.ops import ldpc, nr_ldpc as nr
 
 
 def _syndrome_ok(code, cw):
@@ -146,8 +146,8 @@ def test_rate_match_repetition():
 def test_transport_nr_mode_end_to_end():
     """rate_match="nr" through the transport layout: place -> extract restores
     per-codeword LLR streams with filler priors pinned and puncture erased."""
-    from srsran_ce_tpu import transport
-    from srsran_ce_tpu.utils import synthetic
+    from srsran_ce import transport
+    from srsran_ce.utils import synthetic
 
     code = nr.nr_base_graph(2, 32)
     plan = ldpc.make_ldpc_plan(code)
@@ -183,7 +183,7 @@ def test_transport_nr_mode_end_to_end():
 
 
 def test_payload_bits_accounts_fillers():
-    from srsran_ce_tpu import transport
+    from srsran_ce import transport
 
     code = nr.nr_base_graph(2, 16)
     plan = ldpc.make_ldpc_plan(code)
@@ -198,8 +198,8 @@ def test_nr_layout_rejects_bad_tx_bits():
     """User-supplied tx_bits in rate_match='nr' must be validated in layout()
     (a bare assert downstream vanishes under python -O; tx_bits<=0 would hit a
     ZeroDivisionError)."""
-    from srsran_ce_tpu import transport
-    from srsran_ce_tpu.utils import synthetic
+    from srsran_ce import transport
+    from srsran_ce.utils import synthetic
 
     code = nr.nr_base_graph(2, 16)
     case = synthetic.make_mimo_case(seed=3, n_rx=1, modulation="qpsk", n_prbs=12)

@@ -1,10 +1,11 @@
 """Primitive-level parity: jnp DSP ops vs the float64 numpy oracle implementations."""
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
-from srsran_ce_tpu.ops import dsp
-from srsran_ce_tpu.utils import oracle
+from srsran_ce.ops import dsp
+from srsran_ce.utils import oracle
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -69,7 +70,7 @@ def test_cnn_inpaint_matches_oracle(n, comb):
 
 @pytest.mark.parametrize("n", [2, 4, 8, 12])
 def test_virtual_pilot_matrix_matches_oracle(n):
-    from srsran_ce_tpu.models.plan import _virtual_pilot_matrix
+    from srsran_ce.models.plan import _virtual_pilot_matrix
 
     rng = np.random.default_rng(n)
     p = rng.standard_normal(n) + 1j * rng.standard_normal(n)
@@ -109,7 +110,7 @@ def test_lerp_gather_linear_interp():
 
 def test_variant_presets():
     """Reference-variant presets map onto the shared core's config space."""
-    from srsran_ce_tpu import baseline_config, cnn_config, tensorized_config
+    from srsran_ce import baseline_config, cnn_config, tensorized_config
 
     b = baseline_config(30e3)
     t = tensorized_config(30e3)
@@ -117,3 +118,35 @@ def test_variant_presets():
     assert b == t  # mathematically identical in the reference too
     assert b.interp == "linear" and c.interp == "cnn"
     assert c.cnn_alpha == 0.2
+
+
+@pytest.mark.parametrize(
+    "name,algorithm",
+    [
+        ("default", jax.lax.DotAlgorithmPreset.BF16_BF16_F32),
+        ("high", jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3),
+        ("highest", jax.lax.DotAlgorithmPreset.F32_F32_F32),
+    ],
+)
+def test_precision_names_map_to_dot_algorithms(name, algorithm):
+    """A precision name is one explicit dot algorithm for float32 operands,
+    real or complex — the same arithmetic on every backend."""
+    assert dsp.precision_of(name, jnp.float32) is algorithm
+    assert dsp.precision_of(name, jnp.complex64) is algorithm
+    assert dsp.precision_of(name) is algorithm
+
+
+@pytest.mark.parametrize("name", ["default", "high", "highest"])
+def test_precision_of_wide_operands_is_exact(name):
+    """float64 operands never go through a float32 algorithm (it would round
+    them to float32 first): every name multiplies them exactly."""
+    assert dsp.precision_of(name, jnp.float64) is jax.lax.Precision.HIGHEST
+    assert dsp.precision_of(name, jnp.complex128) is jax.lax.Precision.HIGHEST
+    a = np.random.default_rng(0).standard_normal((4, 8))
+    got = jnp.matmul(a, a.T, precision=dsp.precision_of(name, a.dtype))
+    np.testing.assert_allclose(np.asarray(got), a @ a.T, rtol=1e-14)
+
+
+def test_precision_of_unknown_name():
+    with pytest.raises(ValueError, match="unknown matmul precision"):
+        dsp.precision_of("tf32")

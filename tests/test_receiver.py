@@ -17,9 +17,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from srsran_ce_tpu.models import estimator, receiver
-from srsran_ce_tpu.ops import equalize
-from srsran_ce_tpu.utils import synthetic
+from srsran_ce.models import estimator, receiver
+from srsran_ce.ops import equalize
+from srsran_ce.utils import synthetic
 
 
 def _rand_cplx(rng, shape):
@@ -278,8 +278,8 @@ def test_batched_matches_single():
 def test_dp_receiver_matches_unsharded():
     """Batch-sharded receiver on the 8-virtual-device CPU mesh == the unsharded
     batched receiver, problem for problem (both factored-auto and dense)."""
-    from srsran_ce_tpu.parallel import mesh as mesh_lib
-    from srsran_ce_tpu.parallel.data_parallel import build_dp_receiver
+    from srsran_ce.parallel import mesh as mesh_lib
+    from srsran_ce.parallel.data_parallel import build_dp_receiver
 
     n_rx, nL, B = 2, 2, 8
     probs = _mimo_inputs(n_rx, nL, seeds=tuple(range(B)), cfo_hz=200.0)
@@ -311,8 +311,8 @@ def test_sp_receiver_matches_unsharded(two_hops):
     """Subcarrier-sharded receiver (dp=2 x sp=2) == unsharded batched receiver
     on single-hop and frequency-hopped geometries: the factored SP front plus
     shard-local equalization must be exact at every shard seam."""
-    from srsran_ce_tpu.parallel import mesh as mesh_lib
-    from srsran_ce_tpu.parallel.subcarrier import build_sp_receiver
+    from srsran_ce.parallel import mesh as mesh_lib
+    from srsran_ce.parallel.subcarrier import build_sp_receiver
 
     n_rx, nL, B = 2, 2, 2
     kw = dict(cfo_hz=250.0)
@@ -349,7 +349,7 @@ def test_llr_receiver_matches_host_demap(mode):
     """The fused LLR receiver == host-side demap.llrs on the equalized
     receiver's own outputs, to within one int8 quantization step (identical
     float math up to fusion reassociation; round() can flip at boundaries)."""
-    from srsran_ce_tpu.ops import demap
+    from srsran_ce.ops import demap
 
     n_rx, nL = 2, 2
     kw = dict(cfo_hz=200.0, two_hops=True, n_prbs=12)
@@ -396,7 +396,7 @@ def test_llr_receiver_matches_host_demap(mode):
 def test_end_to_end_mimo_llr_bits():
     """Bits in -> soft bits out: a 16QAM payload's transmitted bits must match
     the fused receiver's LLR hard decisions wherever it reports good SINR."""
-    from srsran_ce_tpu.ops import demap
+    from srsran_ce.ops import demap
 
     n_rx, nL, seed = 2, 2, 21
     cases = [
@@ -462,8 +462,8 @@ def test_llr_receiver_batched_matches_single():
 def test_dp_llr_receiver_matches_unsharded():
     """DP-sharded fused-LLR receiver == unsharded batched one (int8, <=1 ulp
     of quantization from cross-program reassociation)."""
-    from srsran_ce_tpu.parallel import mesh as mesh_lib
-    from srsran_ce_tpu.parallel.data_parallel import build_dp_receiver
+    from srsran_ce.parallel import mesh as mesh_lib
+    from srsran_ce.parallel.data_parallel import build_dp_receiver
 
     n_rx, nL, B = 2, 2, 8
     probs = _mimo_inputs(n_rx, nL, seeds=tuple(range(B)), cfo_hz=200.0)
@@ -494,8 +494,8 @@ def test_dp_llr_receiver_matches_unsharded():
 def test_sp_llr_receiver_matches_unsharded(two_hops):
     """Subcarrier-sharded fused-LLR receiver == unsharded batched one (demap is
     shard-local; int8 outputs within one quantization step across programs)."""
-    from srsran_ce_tpu.parallel import mesh as mesh_lib
-    from srsran_ce_tpu.parallel.subcarrier import build_sp_receiver
+    from srsran_ce.parallel import mesh as mesh_lib
+    from srsran_ce.parallel.subcarrier import build_sp_receiver
 
     n_rx, nL = 2, 2
     kw = dict(cfo_hz=250.0)

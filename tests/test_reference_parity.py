@@ -21,7 +21,7 @@ torch = pytest.importorskip("torch")
 if not os.path.isdir(REF):  # pragma: no cover
     pytest.skip("reference checkout not available", allow_module_level=True)
 
-from srsran_ce_tpu.utils import oracle, synthetic
+from srsran_ce.utils import oracle, synthetic
 
 
 def _run_reference(variant, case, cnn_alpha=0.0):

@@ -8,9 +8,9 @@ the float64 oracle, channel NMSE vs ground truth, on cases driven by these pilot
 import numpy as np
 import pytest
 
-from srsran_ce_tpu.models import estimator
-from srsran_ce_tpu.ops import sequences
-from srsran_ce_tpu.utils import oracle, synthetic
+from srsran_ce.models import estimator
+from srsran_ce.ops import sequences
+from srsran_ce.utils import oracle, synthetic
 
 
 # ---------------------------------------------------------------------------
@@ -117,7 +117,7 @@ def _hop(n_prbs=24, n_layers=1, comb=2, n_sym=14, dmrs_syms=(0, 4, 9, 13), prb_s
          n_prb_total=None):
     import math
 
-    from srsran_ce_tpu.config import HopConfig
+    from srsran_ce.config import HopConfig
 
     n_cdm = math.ceil(n_layers / 2)
     re_mask = synthetic.comb_re_mask(comb, n_cdm)
@@ -272,7 +272,7 @@ def test_dmrs_type2_mask_layout():
 def test_dmrs_type2_pilots_occ_and_ordinals():
     import math
 
-    from srsran_ce_tpu.config import HopConfig
+    from srsran_ce.config import HopConfig
 
     n_prbs, n_layers = 12, 4
     re_mask = sequences.dmrs_re_mask(2, math.ceil(n_layers / 2))

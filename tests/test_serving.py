@@ -1,9 +1,9 @@
 """Serving front-end: plan bucketing, tail padding, order preservation."""
 import numpy as np
 
-from srsran_ce_tpu import serving
-from srsran_ce_tpu.models import estimator
-from srsran_ce_tpu.utils import synthetic
+from srsran_ce import serving
+from srsran_ce.models import estimator
+from srsran_ce.utils import synthetic
 
 
 def _problem(case):
@@ -210,7 +210,7 @@ def test_tracked_server_gains_across_soundings():
 
 def test_serving_learned_smoothing_with_params():
     """serving.process supports learned modes: params pytree shared per call."""
-    from srsran_ce_tpu.models import training
+    from srsran_ce.models import training
     import dataclasses as dc
 
     case = synthetic.make_case(seed=44, n_prbs=16, n_layers=1, snr_db=15.0, smoothing="none")
@@ -271,7 +271,7 @@ def test_equalized_serving_matches_receiver_calls():
     """out="equalized" over a shuffled mix of single-RX and 2-RX problems,
     dense (time_interp) and factored (static) buckets: submission order, and
     every result matches a direct build_receiver_ri call on that problem."""
-    from srsran_ce_tpu.models import receiver
+    from srsran_ce.models import receiver
 
     specs = [
         dict(n_rx=1, kw=dict(n_prbs=24, n_layers=1)),
@@ -356,7 +356,7 @@ def test_llr_serving_matches_receiver_calls():
     call on that problem to within one quantization step."""
     import pytest
 
-    from srsran_ce_tpu.models import receiver
+    from srsran_ce.models import receiver
 
     specs = [
         dict(n_rx=1, kw=dict(n_prbs=24, n_layers=1)),

@@ -11,17 +11,17 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from srsran_ce_tpu.models import estimator
-from srsran_ce_tpu.parallel import mesh as mesh_lib
-from srsran_ce_tpu.parallel.data_parallel import build_dp_batched
-from srsran_ce_tpu.parallel.subcarrier import (
+from srsran_ce.models import estimator
+from srsran_ce.parallel import mesh as mesh_lib
+from srsran_ce.parallel.data_parallel import build_dp_batched
+from srsran_ce.parallel.subcarrier import (
     build_sp,
     build_sp_batched,
     build_sp_tracked,
     make_shard_plan,
 )
-from srsran_ce_tpu.models.plan import make_plan
-from srsran_ce_tpu.utils import oracle, synthetic
+from srsran_ce.models.plan import make_plan
+from srsran_ce.utils import oracle, synthetic
 
 
 def _ri(x):
@@ -238,7 +238,7 @@ def test_sp_learned_smoothing_matches_unsharded():
     """Sharded learned smoothing (layer-wise conv halo exchange) must reproduce the
     unsharded denoiser path exactly — including at band edges, where each conv
     layer's SAME zero padding must not be contaminated by halo activations."""
-    from srsran_ce_tpu.models import denoiser
+    from srsran_ce.models import denoiser
 
     n_sp = 4
     mesh = mesh_lib.make_mesh((2, n_sp), ("dp", "sp"))
@@ -257,14 +257,14 @@ def test_sp_learned_smoothing_matches_unsharded():
     ch_sp = estimator.merge_ri(np.asarray(out_sp.channel_est_rg))
     ch_1 = estimator.merge_ri(np.asarray(out_1.channel_est_rg))
     # the denoiser computes in float32 (apply_complex casts); the sharded VALID
-    # conv vs flax SAME conv reassociate differently -> ~1e-7 relative
+    # conv vs the SAME-padded conv reassociate differently -> ~1e-7 relative
     np.testing.assert_allclose(ch_sp, ch_1, rtol=3e-6, atol=1e-8)
     np.testing.assert_allclose(float(out_sp.noise_est), float(out_1.noise_est), rtol=1e-6)
 
 
 def test_apply_sharded_single_shard_equals_apply():
-    """apply_sharded with zero halos (n_sp=1) == the flax apply, bitwise-ish."""
-    from srsran_ce_tpu.models import denoiser
+    """apply_sharded with zero halos (n_sp=1) == the plain apply, bitwise-ish."""
+    from srsran_ce.models import denoiser
 
     params = denoiser.init_params(jax.random.PRNGKey(2), n_re=48)
     params = jax.tree.map(
@@ -455,7 +455,7 @@ def test_sp_factored_rejects_time_interp():
 def test_sp_tracked_matches_unsharded_tracker():
     """Multi-slot tracking on the SP path: gains, state, and tracked grids equal
     the unsharded tracker's across a 3-sounding sequence (fresh noise each slot)."""
-    from srsran_ce_tpu.models import tracking
+    from srsran_ce.models import tracking
 
     n_sp = 4
     mesh = mesh_lib.make_mesh((2, n_sp), ("dp", "sp"))
@@ -487,7 +487,7 @@ def test_sp_tracked_matches_unsharded_tracker():
 
 def test_sp_tracked_factored():
     """SP tracking + factored output: reconstruction matches the SP tracked grid."""
-    from srsran_ce_tpu.models import tracking
+    from srsran_ce.models import tracking
 
     mesh = mesh_lib.make_mesh((2, 4), ("dp", "sp"))
     kw = dict(n_prbs=32, n_layers=2, cfo_hz=200.0)
@@ -512,7 +512,7 @@ def test_sp_tracked_factored():
 def test_sp_tracked_hopped_matches_unsharded():
     """Hopped SP tracking (replicated front): equals the unsharded tracker across
     soundings; factored variant reconstructs the tracked grid."""
-    from srsran_ce_tpu.models import tracking
+    from srsran_ce.models import tracking
 
     mesh = mesh_lib.make_mesh((2, 4), ("dp", "sp"))
     kw = dict(n_prbs=8, n_layers=2, two_hops=True, cfo_hz=0.0, cfo_compensate=False)

@@ -13,8 +13,8 @@ import zlib
 import numpy as np
 import pytest
 
-from srsran_ce_tpu.models import estimator
-from srsran_ce_tpu.utils import oracle, synthetic
+from srsran_ce.models import estimator
+from srsran_ce.utils import oracle, synthetic
 
 
 def _nmse(a, b):
@@ -129,18 +129,18 @@ def test_serve_layout_matches_ref_layout_time_interp():
     case = synthetic.make_case(
         seed=5, n_prbs=24, n_layers=2, snr_db=30.0, doppler_hz=200.0, time_interp="linear"
     )
-    from srsran_ce_tpu.models.plan import make_plan
+    from srsran_ce.models.plan import make_plan
 
     plan = make_plan(case.hop1, case.hop2, case.config, case.pilots.shape[2])
     rg = estimator.split_ri(case.received_rg.astype(np.complex64))
     pil = estimator.split_ri(case.pilots.astype(np.complex64))
     ref = estimator._estimate_impl(
         plan, estimator._ri_to_complex(rg), estimator._ri_to_complex(pil),
-        np.float32(case.beta), "xla", None, "ref",
+        np.float32(case.beta), None, "ref",
     )
     srv = estimator._estimate_impl(
         plan, estimator._ri_to_complex(rg), estimator._ri_to_complex(pil),
-        np.float32(case.beta), "xla", None, "serve",
+        np.float32(case.beta), None, "serve",
     )
     np.testing.assert_allclose(
         np.asarray(srv.channel_est_rg),

@@ -6,8 +6,8 @@ snap-back on movement). No reference counterpart."""
 import numpy as np
 import jax.numpy as jnp
 
-from srsran_ce_tpu.models import estimator, tracking
-from srsran_ce_tpu.utils import synthetic
+from srsran_ce.models import estimator, tracking
+from srsran_ce.utils import synthetic
 
 
 def _slots(n_slots, seed=5, snr_db=0.0, **kw):
@@ -183,8 +183,8 @@ def test_tracked_receiver_first_slot_matches_plain_and_then_improves():
     single-slot despite 12 dB better channel NMSE)."""
     import numpy as np
 
-    from srsran_ce_tpu.models import estimator, receiver, tracking
-    from srsran_ce_tpu.utils.synthetic import make_mimo_case
+    from srsran_ce.models import estimator, receiver, tracking
+    from srsran_ce.utils.synthetic import make_mimo_case
 
     n_slots, n_rx, nL = 8, 2, 1
     mk = dict(n_rx=n_rx, modulation="qpsk", scramble=False, n_prbs=12,
@@ -231,8 +231,8 @@ def test_tracked_server_receiver_llrs():
     final-slot hard decisions are at least as good as the stateless path."""
     import numpy as np
 
-    from srsran_ce_tpu import serving
-    from srsran_ce_tpu.utils.synthetic import make_mimo_case
+    from srsran_ce import serving
+    from srsran_ce.utils.synthetic import make_mimo_case
 
     n_slots, n_rx, nL = 5, 2, 1
     mk = dict(n_rx=n_rx, modulation="qpsk", scramble=False, n_prbs=12,
@@ -277,8 +277,8 @@ def test_tracked_server_mode_switch_resets_stream():
     and must not silently fork into two per-mode states)."""
     import numpy as np
 
-    from srsran_ce_tpu import serving
-    from srsran_ce_tpu.utils.synthetic import make_case, make_mimo_case
+    from srsran_ce import serving
+    from srsran_ce.utils.synthetic import make_case, make_mimo_case
 
     kw = dict(n_prbs=6, n_layers=1, cfo_hz=0.0, cfo_compensate=False)
     srv = serving.TrackedServer(batch_size=2, matmul_precision=None)

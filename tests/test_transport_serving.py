@@ -7,9 +7,9 @@ implementation."""
 import numpy as np
 import pytest
 
-from srsran_ce_tpu import serving, transport
-from srsran_ce_tpu.ops import demap, ldpc, sequences
-from srsran_ce_tpu.utils import synthetic
+from srsran_ce import serving, transport
+from srsran_ce.ops import demap, ldpc, sequences
+from srsran_ce.utils import synthetic
 
 
 def test_data_mask_matches_synthetic_convention():
@@ -356,7 +356,7 @@ def test_decoded_serving_nr_rate_match():
     38.212 §5.4.2 chain (punctured 2Z head, filler priors, Qm interleaving,
     CRC11 gate) through the real served receiver — not just the transport-layer
     roundtrip. Payload must come back exact with CRC and parity both passing."""
-    from srsran_ce_tpu.ops import nr_ldpc as nr
+    from srsran_ce.ops import nr_ldpc as nr
 
     code = nr.nr_base_graph(2, 32)
     plan = ldpc.make_ldpc_plan(code)
@@ -401,8 +401,7 @@ def test_decoded_serving_layered_group():
     """serving.process(out='decoded') with the layered schedule + row-group
     option threaded through TransportCoding (schedule='layered',
     layered_group=2): the plumbing that routes served decodes onto the
-    grouped-layered pallas tier (and, for NR-BG1-scale codes on hardware,
-    the streamed VMEM tier)."""
+    grouped layered decoder that kernels="auto" picks."""
     code = ldpc.array_code(4, 8, 23)
     plan = ldpc.make_ldpc_plan(code)
     nbits = demap.bits_per_symbol("qpsk")
@@ -484,7 +483,7 @@ def test_decoded_on_device_nr_rate_match(tx_bits):
     must re-saturate to the int8 range exactly like extract_streams'
     int16-accumulate-then-clip — code review r05): must match the host path
     bit-for-bit."""
-    from srsran_ce_tpu.ops import nr_ldpc as nr
+    from srsran_ce.ops import nr_ldpc as nr
 
     code = nr.nr_base_graph(2, 32)
     plan = ldpc.make_ldpc_plan(code)

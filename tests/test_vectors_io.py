@@ -7,8 +7,8 @@ oracle-generated golden vectors.
 import numpy as np
 import pytest
 
-from srsran_ce_tpu.utils import vectors
-from srsran_ce_tpu.validation import conformance, synth_vectors
+from srsran_ce.utils import vectors
+from srsran_ce.validation import conformance, synth_vectors
 
 
 def test_entry_roundtrip(tmp_path):
@@ -30,7 +30,7 @@ def test_entry_roundtrip(tmp_path):
 def test_native_loader_matches_numpy(tmp_path):
     pytest.importorskip("ctypes")
     try:
-        from srsran_ce_tpu.native import loader
+        from srsran_ce.native import loader
     except Exception:
         pytest.skip("native loader unavailable (no compiler)")
     rng = np.random.default_rng(1)
@@ -53,7 +53,7 @@ def test_native_loader_matches_numpy(tmp_path):
 
 def test_native_ri_converters():
     try:
-        from srsran_ce_tpu.native import loader
+        from srsran_ce.native import loader
     except Exception:
         pytest.skip("native loader unavailable")
     rng = np.random.default_rng(2)
@@ -95,7 +95,7 @@ def test_pilot_candidate_search_finds_true_layout():
 
 def test_native_assemble_batch_ri_matches_numpy():
     try:
-        from srsran_ce_tpu.native import loader
+        from srsran_ce.native import loader
     except Exception:
         pytest.skip("native loader unavailable")
     rng = np.random.default_rng(8)
@@ -112,7 +112,7 @@ def test_run_case_batched_matches_sequential(tmp_path, monkeypatch):
     """The batched candidate search (round 3: all ordering x port problems
     through one batched executable) must select the same ordering and report
     the same errors as the sequential single-problem path."""
-    import srsran_ce_tpu.validation.conformance as _conf
+    import srsran_ce.validation.conformance as _conf
 
     specs = [dict(n_prbs=12, n_layers=4, comb=2, scs_hz=30e3)]
     header = synth_vectors.generate_suite(tmp_path, specs, seed0=777)
